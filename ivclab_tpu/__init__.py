@@ -1,12 +1,12 @@
-"""ivclab_tpu — a TPU-native hybrid image/video codec framework.
+"""ivclab_tpu — a hybrid image/video codec framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the TUM
 Image & Video Compression Lab reference (`ivclab`): JPEG-style still-image
 coding (8x8 DCT + quantization + zig-zag + zero-run + Huffman), predictive
 (DPCM) coding, YUV 4:2:0 chroma subsampling, and block motion-compensated
-hybrid video coding — all restructured for TPU hardware:
+hybrid video coding — all restructured for data-parallel accelerators:
 
-- Transforms run as fused MXU matmuls over ``[num_blocks, 64]`` tensors
+- Transforms run as fused matmuls over ``[num_blocks, 64]`` tensors
   (DCT expressed in Kronecker form with zig-zag + quantization folded in).
 - Entropy coding is re-architected from a sequential symbol queue to
   parallel symbol emission + prefix-sum bitstream packing on device, with

@@ -572,6 +572,9 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from ivclab_tpu.runtime.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -28,7 +28,7 @@ class VideoConfig:
 
 @dataclass
 class SweepConfig:
-    """RD sweep workloads (reference exercise definitions, BASELINE.md)."""
+    """RD sweep workloads (reference exercise definitions)."""
 
     # exercises/ch3/ex1.py:21
     image_q_scales: tuple = (0.05, 0.1, 0.15, 0.2, 0.3)

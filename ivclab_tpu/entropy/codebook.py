@@ -235,14 +235,13 @@ def build_canonical_code(pmf: np.ndarray, lower_bound: int = 0, max_len: int = B
 
 @dataclass(frozen=True)
 class HotCode:
-    """Hot-table + escape canonical Huffman code — the TPU-fast format.
+    """Hot-table + escape canonical Huffman code — the gather-free format.
 
-    TPU gathers cost ~8 ns/element, so per-symbol table lookups over a
-    multi-thousand-symbol alphabet dominate both encode and decode
-    (measured: a 4096-entry gather over one GOP's symbols takes 150 ms; the
-    equivalent dense compare-select reduction over a 128-entry table takes
-    8 ms). This format makes every table interaction a <=128-wide dense
-    mask-reduce:
+    Chosen for the first target hardware, where per-symbol table gathers
+    over a
+    multi-thousand-symbol alphabet dominated both encode and decode; this
+    format makes every table interaction a <=128-wide dense mask-reduce
+    (whether it still pays on the GPU is an open measurement):
 
       - the K (<=127) most frequent symbols carry canonical Huffman codes
         (<= ``max_len`` bits) from a K+1-symbol code whose last symbol is

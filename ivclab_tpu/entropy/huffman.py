@@ -9,7 +9,7 @@ and decode is the serial C++ canonical decoder.
 
 The stream format is this framework's own canonical MSB-first format —
 losslessness (decode o encode = id) and optimal code lengths are the
-contract, not stream equality with constriction (BASELINE.md).
+contract, not stream equality with constriction.
 """
 
 from __future__ import annotations

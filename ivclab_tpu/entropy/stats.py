@@ -4,7 +4,7 @@ Reference parity: ``ivclab/entropy/entropy.py:6-72`` (stats_marg,
 smooth_pmf, calc_entropy, min_code_length) and
 ``ivclab/entropy/probability.py:20-212`` (basic_histo, stats_joint,
 stats_cond). All histograms are scatter-add ``bincount``s so they run on
-TPU; bin-edge semantics exactly reproduce ``np.histogram`` with an edge
+the device; bin-edge semantics exactly reproduce ``np.histogram`` with an edge
 array (B edges -> B-1 bins, last bin right-inclusive, out-of-range values
 dropped) because the reference's golden entropy values depend on that
 quirk (SURVEY.md component #10).

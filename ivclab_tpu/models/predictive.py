@@ -48,7 +48,7 @@ def min_entropy_predictor(image):
 
     First row predicts from W, first column from N, pixel (0, 0) from 128.
     Open-loop means no wavefront dependency: the whole field is three
-    shifted views and two selects, one fused VPU pass. Arithmetic is int32
+    shifted views and two selects, one fused elementwise pass. Arithmetic is int32
     (the reference's uint8 buffer can wrap on the gradient case; inputs
     here are widened first).
 

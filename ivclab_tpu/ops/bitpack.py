@@ -2,7 +2,7 @@
 
 This replaces the reference's inherently serial per-symbol queue encode
 (``ivclab/entropy/huffman.py:28-33``, Python -> Rust per symbol) with the
-TPU-native restructuring from SURVEY.md §7:
+data-parallel restructuring from SURVEY.md §7:
 
 encode:  gather (codeword, length) per symbol -> exclusive prefix sum of
          lengths -> every symbol knows its bit offset -> each left-justified
@@ -96,7 +96,7 @@ def decode_blocks_device(words, block_bit_offsets, block_sym_counts, tables, max
     slots are 0).
 
     Each block walks its own bits with a ``fori_loop``; all blocks advance
-    in lockstep on the VPU — the sequential depth is max_syms, not
+    in lockstep — the sequential depth is max_syms, not
     num_blocks * max_syms as in the reference's Python loop.
     """
     lj, fc, go, ss, min_len = (jnp.asarray(t) for t in tables)
@@ -230,8 +230,8 @@ def locals_from_groups(group_words, block_bit_offsets, group_size: int, local_wo
     word offset (log2(W) dense roll steps) and keep the first
     ``local_words`` words, then shift by the bit phase so the next code
     starts at bit 31 of word 0. All dense row ops — replaces the
-    ``words[idx]`` gather (B x LW elements at ~8 ns each) that dominated
-    the LUT decoder's setup.
+    ``words[idx]`` gather (B x LW elements) that dominated the LUT
+    decoder's setup on the first target hardware.
 
     group_words: [G, W] u32 (W a power of two); block_bit_offsets: [G*gs]
     bit offsets into the flat stream. Returns local [G*gs, local_words].
@@ -267,7 +267,7 @@ def decode_blocks_hot(local, block_sym_counts, lj, first_code, group_offset,
     """Gather-free canonical decode of hot+escape streams.
 
     ``local``: [B, LW] phase-aligned block streams (see
-    :func:`locals_from_groups`). Per symbol, everything is dense VPU math:
+    :func:`locals_from_groups`). Per symbol, everything is dense vector math:
     the code length comes from <= max_len-1 boundary compares
     (canonical left-justified layout), first_code/group_offset from
     max_len+1-wide select reductions, the hot symbol value from a
@@ -340,8 +340,9 @@ def decode_blocks_hot(local, block_sym_counts, lj, first_code, group_offset,
 def pack_codes_grouped_dense(codes, lens, group_size: int = 16, words_per_group: int = 1600):
     """Scatter-free grouped packer: dense one-hot accumulate + binary rolls.
 
-    TPU scatter throughput (~10 ns/update) makes the index-based packers
-    the pipeline bottleneck; every step here is a dense VPU op:
+    Chosen for the first target hardware, whose scatter throughput made
+    the index-based packers the pipeline bottleneck; every step here is a
+    dense op:
 
       1. per-block pack: a ``fori_loop`` over symbol slots; at step i every
          block deposits its i-th codeword's two word-parts into a private

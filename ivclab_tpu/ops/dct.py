@@ -1,13 +1,13 @@
-"""Orthonormal 8x8 DCT-II / DCT-III for block grids, built for the MXU.
+"""Orthonormal 8x8 DCT-II / DCT-III for block grids, as matmuls.
 
 Reference parity: ``ivclab/signal/dct.py:4-46`` (scipy.fft.dct over the last
-two axes). Two TPU-native formulations are provided:
+two axes). Two matmul formulations are provided:
 
 1. Separable: ``Y = D @ X @ D.T`` over ``[..., 8, 8]`` blocks — two small
    matmuls, used by the class facade.
 2. Kronecker ("fused"): blocks laid out as ``[N, 64]`` row-major vectors and
-   transformed by one ``[64, 64]`` matmul ``y = x @ kron(D, D).T``. With 64
-   contraction lanes this keeps the MXU fed, and the zig-zag permutation is
+   transformed by one ``[64, 64]`` matmul ``y = x @ kron(D, D).T``. One
+   large matmul instead of many 8x8 ones, and the zig-zag permutation is
    folded in for free by permuting the matrix rows (output arrives directly
    in JPEG scan order). The intra codec's whole transform front-end
    (DCT + quantize + zig-zag, ``ivclab/image/intracodec.py:69-75``) then

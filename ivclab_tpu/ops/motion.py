@@ -6,7 +6,7 @@ The reference runs a triple-nested Python loop — (H/8)x(W/8) blocks x
 
 Here the candidate loop is a ``lax.scan`` whose body evaluates ONE
 displacement for EVERY block at once (full-frame subtract/square + blockwise
-reduction on the VPU), carrying the running (min SSD, argmin) pair. Memory
+reduction), carrying the running (min SSD, argmin) pair. Memory
 stays O(frame), sequential depth is the candidate count (81 for sr=4), and
 XLA fuses each step into a single pass over the frame. Candidate order and
 the strict-< tie-breaking replicate the reference scan order exactly, so
@@ -109,65 +109,28 @@ class MotionCompensator:
         return np.asarray(motion_compensate(ref_image, mv, self.search_range))
 
 
-# Mosaic stack-allocates the unrolled candidate search's temporaries at
-# up to ~1.44x the naive working-set model at the pinned 128-wide panel
-# (hardware anchor: 1080p/sr=4 naive 11.2 MiB runs within the 16 MiB
-# scoped-vmem limit; at wider panels the ratio grew to 2.2-2.7x and
-# overflowed, which is why the panel is pinned). The dispatch rules admit
-# a shape only when naive * the margin stays under the hardware limit.
-_VMEM_LIMIT = 16 * 1024 * 1024
-_VMEM_STACK_MARGIN = 1.44
+ME_BACKENDS = ("pallas", "pallas-interpret", "scan")
 
 
-def pallas_vmem_fits(H: int, W: int, search_range: int, budget: int | None = None) -> bool:
-    """True when the Pallas ME kernel's per-panel working set fits VMEM.
+def resolve_me_backend(me_backend: str | None = None) -> str:
+    """Pick the motion-search implementation.
 
-    The kernel always runs the hardware-validated 128-wide panel (see
-    ``motion_pallas.motion_search_pallas``): it holds the (2sr+1)-way
-    column-shift stack of the padded reference plus the current panel in
-    VMEM, double-buffered; the naive model is multiplied by the measured
-    Mosaic stack margin (see ``_VMEM_STACK_MARGIN``). Widths that no
-    128-multiple panel divides are rejected outright (their full-width
-    fallback panels blew the limit on hardware: 22.06 MiB at a 384-wide
-    panel on 256x384, 17.6 MiB at full-width 352).
+    ``None`` picks the Pallas kernel (``ops/motion_pallas.py``) on the GPU
+    and the XLA candidate scan on every other backend. Explicit values:
+    ``"pallas"``, ``"pallas-interpret"`` (the kernel through the Pallas
+    interpreter, runs on the CPU) and ``"scan"``.
     """
-    if W % 128:
-        return False
-    # an explicit ``budget`` keeps the legacy naive-model semantics
-    limit = _VMEM_LIMIT if budget is None else int(budget * _VMEM_STACK_MARGIN)
-    panel_w = 128
-    hp = -(-(H + 2 * search_range) // 8) * 8
-    total = 2 * search_range + 1
-    return (total * hp + H) * panel_w * 8 * _VMEM_STACK_MARGIN < limit
-
-
-def pallas_tile_vmem_fits(band_h: int, W: int, search_range: int,
-                          budget: int = 12 * 1024 * 1024) -> bool:
-    """VMEM-fits rule for the halo-aware tile kernel (one sharded band).
-
-    The tile kernel always runs the 128-wide panel (see
-    ``motion_pallas.motion_search_tile_pallas``); the working-set model —
-    column-shift stack of the halo-extended band plus the current panel,
-    double-buffered — is multiplied by an empirical 2.2x factor for
-    Mosaic's stack allocation of the unrolled search's per-candidate
-    temporaries (measured: 17.67 MiB actual vs 8.1 MiB naive on a
-    256-row band at a 384-wide panel).
-    """
-    if W % 128:
-        return False
-    panel_w = 128
-    htp = -(-(band_h + 2 * search_range) // 8) * 8
-    total = 2 * search_range + 1
-    return (total * htp + band_h) * panel_w * 8 * 2.2 < budget
+    if me_backend is None:
+        return "pallas" if jax.default_backend() == "gpu" else "scan"
+    if me_backend not in ME_BACKENDS:
+        raise ValueError(f"unknown me_backend {me_backend!r}")
+    return me_backend
 
 
 def motion_search_auto(ref_image, image, search_range: int = 4, block: int = 8):
-    """Backend dispatcher: Pallas kernel on TPU (when the padded reference
-    fits VMEM), XLA candidate scan elsewhere. Results are bit-identical."""
-    import jax
-
-    H, W = image.shape[-2], image.shape[-1]
-    if jax.default_backend() == "tpu" and pallas_vmem_fits(H, W, search_range):
+    """Backend dispatcher: the Pallas kernel on the GPU, the XLA candidate
+    scan elsewhere (see :func:`resolve_me_backend`)."""
+    if resolve_me_backend() == "pallas":
         from ivclab_tpu.ops.motion_pallas import motion_search_pallas
 
         return motion_search_pallas(ref_image, image, search_range, block)
@@ -177,8 +140,8 @@ def motion_search_auto(ref_image, image, search_range: int = 4, block: int = 8):
 @partial(jax.jit, static_argnames=("search_range", "block"))
 def motion_compensate_dense(ref_image, motion_idx, search_range: int = 4, block: int = 8):
     """Select-based MC: accumulate the 81 shifted references under the
-    per-block motion masks. Replaces the per-pixel gather (TPU gathers are
-    latency-bound) with candidate-count dense passes; bit-identical to
+    per-block motion masks. Replaces the per-pixel gather (chosen where
+    gathers were latency-bound) with candidate-count dense passes; bit-identical to
     :func:`motion_compensate` for in-bounds motion fields (the only fields
     the encoder emits).
     """

@@ -1,29 +1,29 @@
-"""Full-search block motion estimation as a Pallas TPU kernel.
+"""Full-search block motion estimation as a Pallas kernel (Triton route, GPU).
 
-The XLA scan formulation (``ivclab_tpu/ops/motion.py``) re-reads the full
-reference frame once per candidate displacement — 81 HBM passes for
-search_range 4. This kernel keeps a column panel of the current frame and
-the candidate reference windows in VMEM and evaluates every candidate with
-on-chip reuse: HBM traffic drops to ~(2*sr+2) frame reads (one per column
-shift + the current frame) regardless of the candidate count.
+The XLA form (:func:`ivclab_tpu.ops.motion.motion_search`) is a scan over
+the ``(2sr+1)^2`` candidate displacements: every step shifts, subtracts and
+block-reduces the whole frame, so one P-frame costs a device-loop
+iteration per candidate, each reading the current and reference frames.
+This kernel runs the whole search in one launch. A 2-D grid of
+``TILE_H x TILE_W`` pixel tiles covers the frame; each program loads its
+tile of the current frame once, then reads the reference window at every
+candidate offset from the halo-padded reference. A tile plus its +/-sr
+halo is about 22 KB, so those repeated reads hit L1/L2, and device
+memory sees about one read of each frame.
 
-Mosaic constraints shape the layout: vector loads from VMEM must be
-128-aligned in the lane (column) dimension, while arbitrary *static*
-sublane (row) offsets are fine. So the 2*sr+1 column shifts are
-precomputed outside the kernel as static XLA slices of the padded
-reference (a ``[2sr+1, Hp, W]`` stack whose panels tile exactly), and the
-2*sr+1 row shifts are static in-kernel sublane slices of that stack. The
-8x8-block SSD reduction runs as two MXU matmuls against constant
-block-sum matrices (``R @ d2 @ C``) — no lane-dim reshapes.
+Block SSDs are float32 sums over each ``block x block`` block: the 8
+rows of every block are 8 row-strided loads summed elementwise, then one
+reduction over each block's 8 columns (a tensor-core product would run
+in TF32 and flip near-tie argmins). The row offset ``dy`` is a loop, the
+column offset ``dx`` is unrolled. Candidates are visited in the
+reference scan order with strict-< updates, and candidates that leave
+the frame are masked to +inf (``ivclab/video/motion.py:39-42``), exactly
+as the scan does; the packed index is ``(dy + sr) * (2 sr + 1) + (dx + sr)``.
 
-Bounds masking reproduces the reference's out-of-bounds candidate skip
-(ivclab/video/motion.py:39-42) and strict-< updates keep the reference's
-first-in-scan-order tie-breaking, so motion fields match the XLA search
-and the reference oracle.
-
-Output layout: ``[n_panels, hb, pwb]`` with one full block per grid step
-(the per-panel MV grid column count rarely satisfies the (8, 128) tiling,
-so the panel axis is hoisted to a leading dim and folded back outside).
+One kernel serves both call sites: the single-frame search is the
+row-band search with row offset 0, the frame height as total height and
+zero-filled halos. The wrapper pads rows and columns up to whole tiles,
+so every frame with ``block``-aligned sides takes the kernel.
 """
 
 from __future__ import annotations
@@ -32,223 +32,100 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+TILE_H, TILE_W = 32, 128  # 4 x 16 MV blocks per program; powers of two
+NUM_WARPS, NUM_STAGES = 8, 2
 
 
-def _me_kernel(ref_ref, cur_ref, rmat_ref, cmat_ref, out_ref, *, sr, block, panel_w, H, W):
-    p = pl.program_id(0)
-    hb = H // block
-    pwb = panel_w // block
+def _me_kernel(row0_ref, ref_ref, cur_ref, out_ref, *, sr, block, total_h, width):
+    th, tw = cur_ref.shape
+    nby, nbx = th // block, tw // block
     total = 2 * sr + 1
+    r0 = pl.program_id(0) * th
+    c0 = pl.program_id(1) * tw
 
-    cur = cur_ref[:, :]  # [H, panel_w]
-    rmat = rmat_ref[:, :]  # [hb, H] block-row summer
-    cmat = cmat_ref[:, :]  # [panel_w, pwb] block-col summer
-    col0 = p * panel_w
+    # row r of every block in the tile: [nby, tw] strided views, so the
+    # row sum of a block is a sum of 8 such slices (no reshape of rows)
+    cur_rows = [cur_ref[pl.ds(r, nby, stride=block), :] for r in range(block)]
+    # global top row / left column of every block in this tile
+    by = row0_ref[0] + r0 + jax.lax.broadcasted_iota(jnp.int32, (nby, nbx), 0) * block
+    bx = c0 + jax.lax.broadcasted_iota(jnp.int32, (nby, nbx), 1) * block
 
-    by = jax.lax.broadcasted_iota(jnp.int32, (hb, pwb), 0) * block
-    bx = jax.lax.broadcasted_iota(jnp.int32, (hb, pwb), 1) * block + col0
-
-    best_ssd = jnp.full((hb, pwb), jnp.inf, dtype=jnp.float32)
-    best_idx = jnp.zeros((hb, pwb), dtype=jnp.int32)
-
-    for dy in range(-sr, sr + 1):
-        for dx in range(-sr, sr + 1):
-            # column shift baked into the stack axis; row shift is a static
-            # sublane slice (arbitrary static row offsets lower to shifts)
-            ref_win = ref_ref[dx + sr, pl.ds(sr + dy, H), :]
-            diff = cur - ref_win
-            d2 = diff * diff
-            # HIGHEST: default TPU matmul precision is bf16, which perturbs
-            # SSDs by ~1e-4 relative and flips near-tie argmins vs the VPU
-            rows = jax.lax.dot(
-                rmat, d2, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            ssd = jax.lax.dot(
-                rows, cmat, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            valid = (
-                (by + dy >= 0)
-                & (by + dy + block <= H)
-                & (bx + dx >= 0)
-                & (bx + dx + block <= W)
-            )
+    def row_of_candidates(iy, carry):
+        best_ssd, best_idx = carry
+        dy = iy - sr
+        valid_y = (by + dy >= 0) & (by + dy + block <= total_h)
+        for ix in range(total):  # static: fixed column offsets per load
+            dx = ix - sr
+            acc = None
+            for r in range(block):
+                win = ref_ref[pl.ds(r0 + sr + dy + r, nby, stride=block),
+                              pl.ds(c0 + sr + dx, tw)]
+                d = cur_rows[r] - win
+                acc = d * d if acc is None else acc + d * d
+            ssd = acc.reshape(nby, nbx, block).sum(axis=2)
+            valid = valid_y & (bx + dx >= 0) & (bx + dx + block <= width)
             ssd = jnp.where(valid, ssd, jnp.inf)
-            idx = (dy + sr) * total + (dx + sr)
-            take = ssd < best_ssd  # strict: first in scan order wins ties
+            take = ssd < best_ssd  # strict: first candidate in scan order wins ties
             best_ssd = jnp.where(take, ssd, best_ssd)
-            best_idx = jnp.where(take, idx, best_idx)
+            best_idx = jnp.where(take, iy * total + ix, best_idx)
+        return best_ssd, best_idx
 
-    out_ref[0, :, :] = best_idx
-
-
-def _block_sum_matrices(H: int, panel_w: int, block: int):
-    hb, pwb = H // block, panel_w // block
-    rmat = np.zeros((hb, H), dtype=np.float32)
-    rmat[np.arange(H) // block, np.arange(H)] = 1.0
-    cmat = np.zeros((panel_w, pwb), dtype=np.float32)
-    cmat[np.arange(panel_w), np.arange(panel_w) // block] = 1.0
-    return rmat, cmat
-
-
-def _me_tile_kernel(ref_ref, cur_ref, vy_ref, rmat_ref, cmat_ref, out_ref, *,
-                    sr, block, panel_w, Ht, W):
-    """Halo-aware variant of :func:`_me_kernel` for one sharded row band.
-
-    ``ref_ref`` holds the column-shift stack of the halo-extended band
-    (rows span [row0 - sr, row0 + Ht + sr) of the global frame), and the
-    y-validity of each (dy, block-row) pair arrives precomputed in
-    ``vy_ref`` — it depends on the band's global row offset, which is a
-    traced ``axis_index`` under shard_map and so cannot be a static
-    in-kernel constant like the single-frame kernel's bounds.
-    """
-    p = pl.program_id(0)
-    hb = Ht // block
-    pwb = panel_w // block
-    total = 2 * sr + 1
-
-    cur = cur_ref[:, :]  # [Ht, panel_w]
-    rmat = rmat_ref[:, :]  # [hb, Ht]
-    cmat = cmat_ref[:, :]  # [panel_w, pwb]
-    col0 = p * panel_w
-
-    bx = jax.lax.broadcasted_iota(jnp.int32, (hb, pwb), 1) * block + col0
-
-    best_ssd = jnp.full((hb, pwb), jnp.inf, dtype=jnp.float32)
-    best_idx = jnp.zeros((hb, pwb), dtype=jnp.int32)
-
-    for dy in range(-sr, sr + 1):
-        for dx in range(-sr, sr + 1):
-            ref_win = ref_ref[dx + sr, pl.ds(sr + dy, Ht), :]
-            diff = cur - ref_win
-            d2 = diff * diff
-            rows = jax.lax.dot(
-                rmat, d2, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            ssd = jax.lax.dot(
-                rows, cmat, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            valid_y = vy_ref[dy + sr, :, :] > 0  # [hb, 1], band-global rows
-            valid_x = (bx + dx >= 0) & (bx + dx + block <= W)
-            ssd = jnp.where(valid_y & valid_x, ssd, jnp.inf)
-            idx = (dy + sr) * total + (dx + sr)
-            take = ssd < best_ssd  # strict: first in scan order wins ties
-            best_ssd = jnp.where(take, ssd, best_ssd)
-            best_idx = jnp.where(take, idx, best_idx)
-
-    out_ref[0, :, :] = best_idx
+    init = (jnp.full((nby, nbx), jnp.inf, jnp.float32), jnp.zeros((nby, nbx), jnp.int32))
+    _, best = jax.lax.fori_loop(0, total, row_of_candidates, init)
+    out_ref[...] = best
 
 
 @partial(jax.jit, static_argnames=("total_h", "search_range", "block", "interpret"))
 def motion_search_tile_pallas(ref_ext, cur_tile, tile_row0, total_h: int,
                               search_range: int = 4, block: int = 8,
                               interpret: bool = False):
-    """Pallas ME for one halo-extended row band under shard_map.
+    """Pallas ME for one row band with a pre-exchanged halo.
 
-    Drop-in for :func:`ivclab_tpu.parallel.halo.motion_search_tile`
-    (bit-identical packed indices): ``ref_ext`` is ``[Ht + 2sr, W]`` with
-    the ppermute-exchanged halos, ``tile_row0`` the band's global first
-    row (traced scalar — feeds the precomputed y-validity input).
+    Drop-in for :func:`ivclab_tpu.parallel.halo.motion_search_tile`:
+    ``ref_ext`` is ``[Ht + 2sr, W]`` (the band plus ``sr`` halo rows above
+    and below), ``cur_tile`` ``[Ht, W]``, ``tile_row0`` the band's global
+    first row (a traced scalar under ``shard_map``) and ``total_h`` the
+    frame height. Returns packed indices ``[Ht/block, W/block]``.
     """
     sr = search_range
     ref_ext = jnp.asarray(ref_ext, dtype=jnp.float32)
     cur = jnp.asarray(cur_tile, dtype=jnp.float32)
     Ht, W = cur.shape
-    total = 2 * sr + 1
+    if Ht % block or W % block or TILE_H % block or TILE_W % block:
+        raise ValueError(f"frame {Ht}x{W} and tiles must be multiples of block={block}")
+    Hp = -(-Ht // TILE_H) * TILE_H
+    Wp = -(-W // TILE_W) * TILE_W
+    cur = jnp.pad(cur, ((0, Hp - Ht), (0, Wp - W)))
+    # rows carry the halo already; columns get +/-sr, both get tile padding
+    ref = jnp.pad(ref_ext, ((0, Hp - Ht), (sr, sr + Wp - W)))
+    row0 = jnp.asarray(tile_row0, dtype=jnp.int32).reshape(1)
 
-    # the tile kernel pins the 128-wide panel (falling back to full width
-    # only for interpret-mode shapes no 128-multiple divides): Mosaic's
-    # stack allocation for the unrolled search runs ~2.2x the naive
-    # working-set model, and wider panels blow the 16 MiB scoped-vmem
-    # limit on real hardware (observed: 17.67 MiB at a 384-wide panel on
-    # a 256-row band whose naive model said 8.1 MiB)
-    panel_w = 128 if W % 128 == 0 else W
-    n_panels = W // panel_w
-    hb, pwb = Ht // block, panel_w // block
-
-    # rows already carry the +/-sr halo; pad to the sublane multiple and
-    # stack the column shifts (lane offsets must be static 128-multiples)
-    Htp = -(-(Ht + 2 * sr) // 8) * 8
-    ref_pad = jnp.pad(ref_ext, ((0, Htp - Ht - 2 * sr), (sr, sr)))
-    ref_shifts = jnp.stack([ref_pad[:, s : s + W] for s in range(total)])
-
-    # y-validity per (dy, block row) in GLOBAL rows — row0 is traced, so
-    # this mask is an input, not a kernel constant. Trailing singleton
-    # keeps the in-kernel load 2-D (Mosaic-friendly broadcast over cols).
-    by_global = jnp.arange(hb, dtype=jnp.int32) * block + jnp.asarray(
-        tile_row0, dtype=jnp.int32
-    )
-    dys = jnp.arange(-sr, sr + 1, dtype=jnp.int32)
-    vy = (
-        (by_global[None, :] + dys[:, None] >= 0)
-        & (by_global[None, :] + dys[:, None] + block <= total_h)
-    ).astype(jnp.int32)[:, :, None]
-
-    rmat, cmat = _block_sum_matrices(Ht, panel_w, block)
-
-    kernel = partial(_me_tile_kernel, sr=sr, block=block, panel_w=panel_w, Ht=Ht, W=W)
+    kernel = partial(_me_kernel, sr=sr, block=block, total_h=total_h, width=W)
     out = pl.pallas_call(
         kernel,
-        grid=(n_panels,),
+        grid=(Hp // TILE_H, Wp // TILE_W),
         in_specs=[
-            pl.BlockSpec((total, Htp, panel_w), lambda p: (0, 0, p), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ht, panel_w), lambda p: (0, p), memory_space=pltpu.VMEM),
-            pl.BlockSpec((total, hb, 1), lambda p: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((hb, Ht), lambda p: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((panel_w, pwb), lambda p: (0, 0), memory_space=pltpu.VMEM),
+            pl.no_block_spec,
+            pl.no_block_spec,
+            pl.BlockSpec((TILE_H, TILE_W), lambda i, j: (i, j)),
         ],
-        out_specs=pl.BlockSpec((1, hb, pwb), lambda p: (p, 0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_panels, hb, pwb), jnp.int32),
+        out_specs=pl.BlockSpec((TILE_H // block, TILE_W // block), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((Hp // block, Wp // block), jnp.int32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=NUM_STAGES),
         interpret=interpret,
-    )(ref_shifts, cur, vy, jnp.asarray(rmat), jnp.asarray(cmat))
-    return out.transpose(1, 0, 2).reshape(hb, n_panels * pwb)
+        name="motion_search",
+    )(row0, ref, cur)
+    return out[: Ht // block, : W // block]
 
 
-@partial(jax.jit, static_argnames=("search_range", "block", "interpret"))
-def motion_search_pallas(ref_image, image, search_range: int = 4, block: int = 8, interpret: bool = False):
+def motion_search_pallas(ref_image, image, search_range: int = 4, block: int = 8,
+                         interpret: bool = False):
     """Pallas full-search ME; drop-in for :func:`ops.motion.motion_search`."""
     sr = search_range
-    ref = jnp.asarray(ref_image, dtype=jnp.float32)
-    cur = jnp.asarray(image, dtype=jnp.float32)
-    H, W = cur.shape
-    total = 2 * sr + 1
-
-    # pin the hardware-validated 128-wide panel (full width only for
-    # interpret-mode shapes no 128-multiple divides): Mosaic's stack
-    # allocation for the unrolled candidate search runs well past the
-    # naive working-set model at wider panels (observed 22.06 MiB vs the
-    # 16 MiB scoped-vmem limit at a 384-wide panel on a 256x384 frame)
-    panel_w = 128 if W % 128 == 0 else W
-    n_panels = W // panel_w
-    hb, pwb = H // block, panel_w // block
-
-    # pad rows to a multiple of 8 for the (sublane, lane) tiling; the extra
-    # rows are never selected by any in-bounds candidate
-    Hp = -(-(H + 2 * sr) // 8) * 8
-    ref_pad = jnp.pad(ref, ((sr, Hp - H - sr), (sr, sr)))
-    # the 2*sr+1 column shifts, stacked: ref_shifts[s, :, c] = ref_pad[:, c+s]
-    ref_shifts = jnp.stack([ref_pad[:, s : s + W] for s in range(total)])
-
-    rmat, cmat = _block_sum_matrices(H, panel_w, block)
-
-    kernel = partial(_me_kernel, sr=sr, block=block, panel_w=panel_w, H=H, W=W)
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_panels,),
-        in_specs=[
-            pl.BlockSpec((total, Hp, panel_w), lambda p: (0, 0, p), memory_space=pltpu.VMEM),
-            pl.BlockSpec((H, panel_w), lambda p: (0, p), memory_space=pltpu.VMEM),
-            pl.BlockSpec((hb, H), lambda p: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((panel_w, pwb), lambda p: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, hb, pwb), lambda p: (p, 0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_panels, hb, pwb), jnp.int32),
-        interpret=interpret,
-    )(ref_shifts, cur, jnp.asarray(rmat), jnp.asarray(cmat))
-    return out.transpose(1, 0, 2).reshape(hb, n_panels * pwb)
+    ref = jnp.pad(jnp.asarray(ref_image, dtype=jnp.float32), ((sr, sr), (0, 0)))
+    H = ref.shape[0] - 2 * sr
+    return motion_search_tile_pallas(ref, image, 0, H, sr, block, interpret=interpret)

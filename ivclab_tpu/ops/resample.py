@@ -103,7 +103,9 @@ def _conv1d_same(x2d, taps, axis: int, boundary: str = "symmetric"):
     else:
         lhs = xp[:, None, :]
     rhs = taps[::-1][None, None, :]  # convolution (not correlation)
-    out = jax.lax.conv_general_dilated(lhs, rhs, (1,), "VALID")[:, 0, :]
+    out = jax.lax.conv_general_dilated(
+        lhs, rhs, (1,), "VALID", precision=jax.lax.Precision.HIGHEST
+    )[:, 0, :]
     return out.T if axis == 0 else out
 
 
@@ -154,7 +156,7 @@ def _lfilter_scan(b, a, x, zi=None):
     """Order-N IIR over axis 0 (direct form II transposed, lax.scan).
 
     The sequential recursion is the filter definition; the scan runs it in
-    lockstep across the other axis on the VPU. float32 on device — the
+    lockstep across the other axis. float32 on device — the
     cheby1 q=2 filter is well-conditioned enough for image-range data.
     ``zi``: optional [n-1, B] initial state.
     """
@@ -214,7 +216,7 @@ def decimate_iir(x, q: int = 2, axis: int = 0):
 def fft_resample(x, num: int, axis: int = 0):
     """Fourier-domain resampling of a real signal along ``axis``.
 
-    TPU-native equivalent of ``scipy.signal.resample`` (used for chroma
+    Device equivalent of ``scipy.signal.resample`` (used for chroma
     upsampling in ``ivclab/image/yuv420codec.py:101-107`` and the filter
     pipeline ``ivclab/signal/signal.py:110-113``).
     """
@@ -231,9 +233,9 @@ def fft_resample(x, num: int, axis: int = 0):
         sl[axis] = slice(start, stop)
         return arr[tuple(sl)]
 
-    # Spectrum surgery happens on float re/im planes: complex constants and
-    # complex scatters are UNIMPLEMENTED on some TPU runtimes, while fft of
-    # existing complex values is fine.
+    # Spectrum surgery happens on float re/im planes (complex constants and
+    # complex scatters are not lowered by every backend); fft of existing
+    # complex values is fine.
     def build(part):
         pos = take(part, 0, nyq)
         neg = keep - nyq
@@ -303,7 +305,9 @@ def lowpass_filter(image, kernel):
     xp = jnp.pad(x, ((kh // 2, (kh - 1) // 2), (kw // 2, (kw - 1) // 2), (0, 0)), mode="symmetric")
     lhs = xp.transpose(2, 0, 1)[:, None]  # [C, 1, H+, W+]
     rhs = jnp.asarray(kernel)[::-1, ::-1][None, None]
-    out = jax.lax.conv_general_dilated(lhs, rhs, (1, 1), "VALID")[:, 0]
+    out = jax.lax.conv_general_dilated(
+        lhs, rhs, (1, 1), "VALID", precision=jax.lax.Precision.HIGHEST
+    )[:, 0]
     out = out.transpose(1, 2, 0)
     return out[..., 0] if squeeze else out
 

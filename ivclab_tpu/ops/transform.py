@@ -1,11 +1,11 @@
 """The fused intra transform pipeline: image plane(s) <-> coded symbols.
 
-This is the TPU-native reshape of the reference's 5-stage object pipeline
+This is the data-parallel reshape of the reference's 5-stage object pipeline
 (``ivclab/image/intracodec.py:66-78``: patch -> DCT -> quantize -> zigzag ->
 zero-run). Here the whole front-end is one jitted program over
 ``[num_blocks, 64]`` tensors:
 
-  pixels --(one [N,64]x[64,64] MXU matmul: DCT with zig-zag folded into the
+  pixels --(one [N,64]x[64,64] matmul: DCT with zig-zag folded into the
   matrix rows)--> scan-ordered coefficients --(multiply by reciprocal
   table + round, fused into the matmul epilogue by XLA)--> quantized
   symbols --(vectorized zero-run scatter)--> per-block symbol buffers
@@ -67,8 +67,9 @@ def forward_symbolize(img_ycbcr, inv_qtable_zz, eob: int = 4000):
     scaled = coeffs.reshape(H // 8, W // 8, C, 64) * inv[None, None]
     qsym = jnp.round(scaled).astype(jnp.int32).reshape(-1, 64)
     # dense (scatter-free) encode: identical buffers to
-    # zerorun_encode_blocks, but TPU scatters serialize (~10 ns/update)
-    # while the one-hot deposit is a fused VPU reduce. The deposit cost is
+    # zerorun_encode_blocks, without scatters (chosen for the first target
+    # hardware, where scatters serialized) — the one-hot deposit is a fused
+    # reduce. Its cost is
     # linear in the slot capacity, and typical codec content peaks well
     # under 32 symbols/block, so encode at a small capacity and zero-pad
     # to BLOCK_CAP — falling back to the full-capacity pass (identical
@@ -143,7 +144,7 @@ GROUP_WORDS = 1600
 def pack_symbols_grouped(buf, valid_len, enc_codes, enc_lens, lower_bound: int):
     """Huffman-pack per-block buffers into word-aligned group substreams.
 
-    This is the TPU-fast path (see ``pack_codes_grouped_dense``): scatters
+    The scatter-free path (see ``pack_codes_grouped_dense``): scatters
     stay row-local. Blocks are grouped ``PACK_GROUP`` at a time; each group's
     stream starts word-aligned. Returns:
       group_words  [G, GROUP_WORDS] u32
@@ -178,8 +179,8 @@ def pack_symbols_grouped(buf, valid_len, enc_codes, enc_lens, lower_bound: int):
 
 # Speculative pack buckets for the per-frame-adaptive paths: measured
 # content at 1080p/q=1.0 peaks at ~51 used words per 16-block group, and
-# the full-stride (1600-word) packer costs 9x more than the 128-word one
-# (71 ms vs 8 ms per frame). Callers validate adequacy from the returned
+# the full-stride (1600-word) packer arena is 12.5x as wide as the 128-word
+# one. Callers validate adequacy from the returned
 # (group_bits, offsets) — which are exact regardless of word truncation —
 # and fall back to :func:`pack_symbols_grouped` when content overflows.
 ADAPTIVE_WPG = 128   # words per group (power of two for the roll arena)
@@ -187,7 +188,7 @@ ADAPTIVE_BW = 32     # per-block deposit buffer words
 
 
 # symbol-capacity buckets for the adaptive pack's gather domain: the
-# code-table gathers are the pack's dominant cost (~8 ns/element), so the
+# code-table gathers are the pack's dominant cost, so the
 # dispatcher slices the buffers to the smallest bucket holding the frame's
 # measured max symbol count (one compiled variant per bucket)
 CAP_SLICES = (32, 48, 64, 96, 128)
@@ -254,8 +255,8 @@ def map_codes_hot(buf, valid_len, hot_values, hot_fused, esc_code: int | None = 
     indices of the hot symbols; ``hot_fused``: [K] uint32 (code << 6 | len).
     Escape symbols emit (esc_code << raw_bits) | index, esc_len + raw_bits.
     No gathers: the table interaction is one [N, S, K] compare-select
-    reduction that XLA fuses into a single pass (measured ~18x faster than
-    the equivalent device gather on v5e).
+    reduction that XLA fuses into a single pass (chosen for the first
+    target hardware, where the equivalent gather was far slower).
     """
     sym = jnp.asarray(buf, dtype=jnp.int32)
     N, S = sym.shape

@@ -33,7 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 
 # Worst case symbols per 64-coeff block: 32 isolated zeros (2 each) +
-# 32 values + EOB = 97. Padded to 128 for clean TPU lanes; slot CAP-1 is a
+# 32 values + EOB = 97. Padded to a power of two, 128; slot CAP-1 is a
 # write trash can and can never be a valid slot.
 BLOCK_CAP = 128
 DEFAULT_EOB = 4000
@@ -103,8 +103,8 @@ def zerorun_encode_blocks_dense(zz, block_size: int = 64, eob: int = DEFAULT_EOB
     """Scatter-free zero-run encode into ``[N, cap]`` buffers.
 
     Same grammar as :func:`zerorun_encode_blocks`, but the output slots are
-    materialized with one-hot broadcast-reductions (TPU scatters serialize
-    at ~10 ns/element; the dense form is a fused VPU reduce). ``cap`` must
+    materialized with one-hot broadcast-reductions (chosen where scatters
+    serialize; the dense form is a fused reduce). ``cap`` must
     be >= max per-block symbol count (pick it from :func:`zerorun_counts`).
     """
     x = jnp.asarray(zz, dtype=jnp.int32)

@@ -4,8 +4,8 @@ The sequence-parallel analog for a codec (SURVEY.md §5): a frame's rows are
 sharded into bands across the ``tile`` mesh axis; full-search motion
 estimation needs ``search_range`` rows of the *reconstructed reference*
 from each neighboring band. Those halos travel as two ``ppermute`` ring
-shifts over ICI, after which every band runs the standard dense candidate
-scan locally — the result is bit-identical to the single-device search.
+shifts between devices, after which every band runs the motion search
+locally — the result is bit-identical to the single-device search.
 """
 
 from __future__ import annotations
@@ -81,8 +81,8 @@ def motion_compensate_tile_dense(ref_ext, motion_idx, search_range: int = 4, blo
 
     The tile analog of :func:`ivclab_tpu.ops.motion.motion_compensate_dense`:
     accumulate the (2sr+1)^2 shifted views of the extended band under the
-    per-block motion masks — dense passes instead of per-pixel gathers (TPU
-    gathers are latency-bound). Bit-identical to the gather form for the
+    per-block motion masks — dense passes instead of per-pixel gathers
+    (chosen where gathers were slow). Bit-identical to the gather form for the
     in-bounds motion fields the encoder emits.
     """
     sr = search_range

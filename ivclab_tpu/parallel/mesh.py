@@ -1,16 +1,19 @@
 """Device mesh construction for the codec's two parallel axes.
 
-The reference is strictly serial (SURVEY.md §2.3); the TPU design shards
-along the two independence structures the codec exposes:
+The reference is strictly serial (SURVEY.md §2.3); the codec shards along
+the two independence structures it exposes:
 
 - ``gop``  — groups of pictures. Each GOP opens with an I-frame, so the
   P-frame recursion through the decoder reconstruction
   (reference ivclab/video/videocodec.py:48,75) never crosses shards.
-  This is the data-parallel axis; it maps to DCN across hosts.
+  This is the data-parallel axis, and the one to put across hosts.
 - ``tile`` — spatial row-bands of a frame. Intra stages (DCT/quant/
   zero-run) are blockwise and need no communication; motion estimation
   needs a +/-search_range halo of the reconstructed reference, exchanged
-  over ICI with ``ppermute`` (ring-neighbor pattern).
+  with ``ppermute`` (ring-neighbor pattern).
+
+The GPUs of one host are joined all to all (NVLink), so any device order
+serves; the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ def make_mesh(n_gop: int | None = None, n_tile: int | None = None, devices=None)
     """Build a ``(gop, tile)`` mesh over the available devices.
 
     Default factorization puts at most 4 devices on the tile axis (halo
-    exchange is a nearest-neighbor pattern, cheap on ICI) and the rest on
-    the embarrassingly parallel gop axis.
+    exchange is a small nearest-neighbor pattern) and the rest on the
+    embarrassingly parallel gop axis.
     """
     devices = np.asarray(jax.devices() if devices is None else devices)
     n = devices.size
@@ -50,12 +53,11 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> bool:
     """Multi-host entry: bring up the JAX distributed runtime.
 
-    The SURVEY.md §5 'Distributed communication backend' row: on a real
-    multi-host pod each process calls this before ``make_mesh`` so
-    ``jax.devices()`` spans every host (gop axis over DCN, tile over ICI).
-    Arguments default to the ``JAX_COORDINATOR_ADDRESS`` /
-    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment (also the
-    standard TPU pod auto-detection when all three are absent). Returns
+    The SURVEY.md §5 'Distributed communication backend' row: on a
+    multi-host cluster each process calls this before ``make_mesh`` so
+    ``jax.devices()`` spans every host (gop axis across hosts, tile axis
+    within one). Arguments default to the ``JAX_COORDINATOR_ADDRESS`` /
+    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment. Returns
     True when a multi-process runtime was initialized, False for the
     single-process case (no-op — every test/bench path in this repo).
     """

@@ -1,6 +1,6 @@
 """Multi-device hybrid video coding: GOP x tile sharding via shard_map.
 
-The full TPU-native reshape of the reference's serial frame loop
+The multi-device reshape of the reference's serial frame loop
 (``ivclab/video/videocodec.py:37-86``):
 
 - the frame stack is sharded ``(gop, tile)``: independent GOPs across the
@@ -11,8 +11,9 @@ The full TPU-native reshape of the reference's serial frame loop
   neighbors via ``ppermute`` before tile-local motion search;
 - per-frame bit counts are ``psum``-reduced over the tile axis.
 
-Everything under one ``jax.jit`` — this is the function the driver
-dry-runs on an 8-device virtual mesh and the scaling benchmark times.
+Everything under one ``jax.jit``; ``__graft_entry__.dryrun_multichip``
+runs it on a virtual CPU mesh and ``chip_smoke.py --four-cards`` on four
+GPUs.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ivclab_tpu.ops.dct import dct2_fused, idct2_fused
+from ivclab_tpu.ops.motion import resolve_me_backend
 from ivclab_tpu.ops.quant import quant_table_zigzag
 from ivclab_tpu.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks_dense
 from ivclab_tpu.parallel.halo import (
@@ -33,28 +35,11 @@ from ivclab_tpu.parallel.halo import (
 )
 
 
-def _resolve_me_backend(me_backend, band_h: int, width: int, sr: int) -> str:
-    """Pick the tile motion-search implementation for a sharded build.
-
-    ``None`` auto-selects: the halo-aware Pallas VMEM kernel on TPU when
-    the band's working set fits (``ops.motion.pallas_tile_vmem_fits``,
-    the same rule the single-device dispatcher uses), else the XLA
-    candidate scan. Explicit values: ``"pallas"``, ``"pallas-interpret"``
-    (CPU-testable), ``"scan"``. All are bit-identical.
-    """
-    if me_backend is not None:
-        if me_backend not in ("pallas", "pallas-interpret", "scan"):
-            raise ValueError(f"unknown me_backend {me_backend!r}")
-        return me_backend
-    from ivclab_tpu.ops.motion import pallas_tile_vmem_fits
-
-    if jax.default_backend() == "tpu" and pallas_tile_vmem_fits(band_h, width, sr):
-        return "pallas"
-    return "scan"
-
-
-def _tile_me(me_backend: str, total_h: int, sr: int):
-    """Tile ME callable ``(ref_ext, cur, row0) -> mv`` for a backend."""
+def _tile_me(me_backend: str | None, total_h: int, sr: int):
+    """Tile ME callable ``(ref_ext, cur, row0) -> mv`` for a backend
+    (``ops.motion.resolve_me_backend``; all are bit-identical on integer
+    frames)."""
+    me_backend = resolve_me_backend(me_backend)
     if me_backend == "scan":
         return lambda ref_ext, cur, row0: motion_search_tile(
             ref_ext, cur, row0, total_h, sr
@@ -127,7 +112,7 @@ def build_sharded_video_encoder(
         else jnp.full(((2 * sr + 1) ** 2,), 7, dtype=jnp.int32)
     )
     eob = 4000
-    tile_me = _tile_me(_resolve_me_backend(me_backend, band_h, width, sr), H, sr)
+    tile_me = _tile_me(me_backend, H, sr)
 
     def shard_fn(frames_local):
         """frames_local: [gop_len, band_h, W] — one GOP's row band."""
@@ -225,12 +210,13 @@ def build_sharded_video_codec(
 ):
     """Compile a GOP+tile-sharded encode **and entropy-pack** step.
 
-    The TPU-native distributed form of the reference's serial encode
+    The distributed form of the reference's serial encode
     (``ivclab/video/videocodec.py:37-86``) including the entropy stage the
     rate-only ``build_sharded_video_encoder`` omits:
 
     - each (gop, tile) shard runs the I/P recursion on its row band with
-      ``ppermute`` halo motion search (ICI ring traffic only);
+      ``ppermute`` halo motion search (neighbour-to-neighbour traffic
+      only);
     - each shard zero-run + hot/escape Huffman-packs its own blocks into
       word-aligned group substreams (``pack_grouped_sized``) — entropy
       coding is fully distributed, no host round trip;
@@ -276,7 +262,7 @@ def build_sharded_video_codec(
     esc_code, esc_len = codec._esc_code, codec._esc_len
     lower = jnp.int32(code.lower_bound)
     raw_bits = code.raw_bits
-    tile_me = _tile_me(_resolve_me_backend(me_backend, band_h, width, sr), H, sr)
+    tile_me = _tile_me(me_backend, H, sr)
 
     def symbolize(plane):
         x = plane.reshape(band_h // 8, 8, W // 8, 8).transpose(0, 2, 1, 3).reshape(-1, 64)
@@ -436,9 +422,7 @@ class ShardedAdaptiveEncoder:
         gop_len = self.gop_len
         qt = jnp.asarray(quant_table_zigzag(self.q, 1)[0])
         inv_qt = 1.0 / qt
-        tile_me = _tile_me(
-            _resolve_me_backend(self.me_backend, band_h, W, sr), self.H, sr
-        )
+        tile_me = _tile_me(self.me_backend, self.H, sr)
 
         def symbolize(plane):
             x = plane.reshape(band_h // 8, 8, W // 8, 8).transpose(0, 2, 1, 3).reshape(-1, 64)
@@ -525,7 +509,7 @@ class ShardedAdaptiveEncoder:
             # the clip bound differs from the exact-alphabet call only for
             # out-of-range symbols, which the per-frame code excludes.
             # The capacity slice shrinks the code-table gathers (the pack's
-            # dominant cost at ~8 ns/element); slots past every block's
+            # dominant cost); slots past every block's
             # count are masked, so any adequate slice packs identically.
             if cap is not None:
                 buf_t = buf_t[:, :cap]

@@ -2,8 +2,8 @@
 
 The reference's defensive checks are serial host-side raises
 (``ivclab/entropy/zerorun.py:66-84``, ``ivclab/entropy/huffman.py:24-26``
-— SURVEY.md §5 'Race detection / sanitizers'). On TPU, data-dependent
-raises can't live inside jit; this module provides:
+— SURVEY.md §5 'Race detection / sanitizers'). On an accelerator,
+data-dependent raises can't live inside jit; this module provides:
 
 - ``checked(fn)``: wraps a jitted function with ``jax.experimental.checkify``
   so in-kernel ``checkify.check`` assertions surface as host errors;

@@ -2,8 +2,9 @@
 
 Compiled lazily (g++ -O3) into ``ivclab_tpu/runtime/native/_build`` with a
 source-hash cache key. Every entry point has a pure-NumPy fallback so the
-framework works where no toolchain exists; the C++ path is the default
-host engine and the correctness oracle for the device kernels.
+framework works where no toolchain exists (with a warning when the build
+fails); the C++ path is the default host engine and the correctness
+oracle for the device kernels.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -35,7 +37,15 @@ def _compile() -> Path | None:
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (subprocess.SubprocessError, FileNotFoundError, OSError):
+    except (subprocess.SubprocessError, FileNotFoundError, OSError) as e:
+        detail = getattr(e, "stderr", None) or b""
+        warnings.warn(
+            f"native entropy engine build failed ({e}); falling back to the "
+            f"pure-Python paths, which are far slower: "
+            f"{detail[-500:].decode(errors='replace')}",
+            RuntimeWarning,
+            stacklevel=3,
+        )
         return None
     os.replace(tmp, out)
     return out

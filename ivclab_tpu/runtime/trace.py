@@ -30,24 +30,14 @@ class StageTimer:
         if not self.enabled:
             yield
             return
-        ctx = contextlib.nullcontext()
-        if self.annotate:
-            try:
-                import jax.profiler
+        import jax
 
-                ctx = jax.profiler.TraceAnnotation(name)
-            except Exception:
-                pass
+        ctx = jax.profiler.TraceAnnotation(name) if self.annotate else contextlib.nullcontext()
         t0 = time.perf_counter()
         with ctx:
             yield
         if sync is not None:
-            try:
-                import jax
-
-                jax.block_until_ready(sync)
-            except Exception:
-                pass
+            jax.block_until_ready(sync)  # device faults surface here
         self.totals[name] += time.perf_counter() - t0
         self.counts[name] += 1
 

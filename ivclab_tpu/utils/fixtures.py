@@ -158,5 +158,5 @@ def video(name: str = "foreman", num_frames: int = 21, shape=(288, 352)) -> np.n
 
 
 def video_1080p(num_frames: int = 8) -> np.ndarray:
-    """1080p benchmark sequence (the BASELINE.md throughput workload)."""
+    """1080p benchmark sequence (the throughput workload)."""
     return video("bench1080", num_frames=num_frames, shape=(1088, 1920))

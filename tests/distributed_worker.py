@@ -65,7 +65,7 @@ def main() -> int:
 
     # heartbeat over the coordination service: report after the GOP step,
     # then poll until every peer's stamp is visible (the real failure-
-    # detection transport — SURVEY.md §5, VERDICT r4 'elastic' partial)
+    # detection transport — SURVEY.md §5)
     import time as _time
 
     from ivclab_tpu.runtime.elastic import DistributedHeartbeat

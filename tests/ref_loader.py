@@ -87,12 +87,12 @@ def load_reference():
     # HuffmanCoder — the differential RD test then codes the reference's
     # own symbol streams with optimal canonical lengths (rate <=
     # constriction's Huffman on the same pmf).
-    from ivclab_tpu.entropy.huffman import HuffmanCoder as _TpuHuffmanCoder
+    from ivclab_tpu.entropy.huffman import HuffmanCoder as _OurHuffmanCoder
 
     ent_pkg.ZeroRunCoder = zerorun.ZeroRunCoder
     ent_pkg.stats_marg = entropy.stats_marg
     ent_pkg.smooth_pmf = entropy.smooth_pmf
-    ent_pkg.HuffmanCoder = _TpuHuffmanCoder
+    ent_pkg.HuffmanCoder = _OurHuffmanCoder
     qnt_pkg.PatchQuant = patchquant.PatchQuant
     utl_pkg.ZigZag = shape.ZigZag
     utl_pkg.Patcher = shape.Patcher

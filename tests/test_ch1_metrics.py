@@ -34,6 +34,6 @@ def test_golden_values(lena, lena_rec):
     assert abs(psnr - GOLDEN_PSNR) < 0.2
 
 
-# Computed once from the deterministic fixtures; identical on CPU and TPU.
+# Computed once from the deterministic fixtures.
 GOLDEN_MSE = 1237.0134
 GOLDEN_PSNR = 17.2071

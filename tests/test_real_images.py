@@ -1,11 +1,11 @@
-"""Real-image acceptance suite (VERDICT r4 item 7).
+"""Real-image acceptance suite.
 
 The reference's golden values are pinned to the course images
 (lena.tif, lena_rec.tif, satpic1.bmp, sail.tif), which are distributed via
 Moodle and not redistributable (``/root/reference/README.md:32-34``) — the
 default test suite therefore pins its goldens to synthetic fixtures. When
 the real images ARE available, point ``IVC_DATA_DIR`` at the directory
-holding them and this module runs the BASELINE.md golden table verbatim
+holding them and this module runs the reference's golden table verbatim
 against ``ivclab_tpu``:
 
     IVC_DATA_DIR=/path/to/data python -m pytest tests/test_real_images.py

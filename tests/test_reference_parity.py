@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from tests.ref_loader import load_reference
+from ref_loader import load_reference
 
 ref = load_reference()
 pytestmark = pytest.mark.skipif(ref is None, reason="reference tree unavailable")
@@ -275,9 +275,9 @@ def test_rd_curve_matches_reference_pipeline():
         c = IntraCodec(quantization_scale=q)
         c.train_huffman_from_image(lena_small)
         recon, _, _, bpp = c.encode_decode(lena, return_bpp=True)
-        psnr_tpu = float(calc_psnr(lena, recon))
+        psnr_ours = float(calc_psnr(lena, recon))
 
-        assert abs(psnr_tpu - psnr_ref) < 0.1, (q, psnr_tpu, psnr_ref)
+        assert abs(psnr_ours - psnr_ref) < 0.1, (q, psnr_ours, psnr_ref)
         assert abs(bpp - bpp_ref) / bpp_ref < 0.02, (q, bpp, bpp_ref)
 
 

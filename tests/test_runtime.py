@@ -1,8 +1,10 @@
 """CLI, tracing, checkpoint tests."""
 
 import json
+from pathlib import Path
 
 import numpy as np
+import pytest
 
 from ivclab_tpu.cli import main as cli_main
 from ivclab_tpu.runtime.checkpoint import GopCheckpointer
@@ -62,6 +64,52 @@ def test_stage_timer():
     rep = t.report()
     assert rep["a"]["calls"] == 2
     assert rep["a"]["total_s"] >= 0
+
+
+def test_stage_timer_propagates_sync_error():
+    """A device fault surfacing at the stage's sync point must not vanish."""
+
+    class FaultyResult:
+        def block_until_ready(self):
+            raise RuntimeError("device fault")
+
+    t = StageTimer(annotate=False)
+    with pytest.raises(RuntimeError, match="device fault"):
+        with t.stage("encode", sync=FaultyResult()):
+            pass
+    assert "encode" not in t.report()
+
+
+def test_stage_timer_annotated_stage_syncs():
+    import jax.numpy as jnp
+
+    t = StageTimer(annotate=True)
+    with t.stage("dct", sync=jnp.ones(4) * 2):
+        pass
+    assert t.report()["dct"]["calls"] == 1
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_set):
+    """With JAX_COMPILATION_CACHE_DIR set nothing is configured in code;
+    otherwise the cache sits at the fixed <checkout>/.jax_cache."""
+    import jax
+
+    from ivclab_tpu.runtime import compile_cache
+
+    updates = []
+    monkeypatch.setattr(jax.config, "update", lambda k, v: updates.append((k, v)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert compile_cache.enable_compile_cache() == str(tmp_path)
+        assert updates == []
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = compile_cache.enable_compile_cache()
+        assert path == str(compile_cache.DEFAULT_DIR)
+        assert compile_cache.DEFAULT_DIR.parent == Path(__file__).resolve().parents[1]
+        assert compile_cache.DEFAULT_DIR.name == ".jax_cache"
+        assert updates == [("jax_compilation_cache_dir", path)]
 
 
 def test_gop_checkpointer(tmp_path):

@@ -112,7 +112,7 @@ def test_cli_info_video(tmp_path, capsys):
 
 
 # ---------------------------------------------------------------- adaptive
-# Per-frame-codebook wire format (VERDICT r3 #1): the reference ships
+# Per-frame-codebook wire format: the reference ships
 # adaptive codebooks as encoder-side pickles (exercises/ch4/E4-1.py:240-334);
 # here they serialize into the stream and a FRESH process decodes from
 # bytes alone.
@@ -225,7 +225,7 @@ def test_cli_adaptive_video_roundtrip(tmp_path, rgb_video, capsys):
 
 
 # -------------------------------------------------------------- frame blobs
-# The facade's per-frame bitstream (VERDICT r3 #9): every encode_decode
+# The facade's per-frame bitstream: every encode_decode
 # call returns a blob decodable with only the previous reconstruction.
 
 
